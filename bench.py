@@ -1,16 +1,20 @@
-"""Benchmark: end-to-end MPC control-step throughput on TPU.
+"""Benchmark: end-to-end MPC control-step throughput on one GPU.
 
 Each "solve" is one full sensorless-AO control step -- frozen-flow
-turbulence evolution, 3-diversity PSF formation (batched FFT2), linear LS
-estimate, condensed-QP assembly and the fixed-barrier Newton-KKT fastMPC
-solve, DM modal correction -- batched over Monte-Carlo scenarios.
+turbulence evolution, 3-diversity PSF formation (partial-DFT measure),
+LS estimate with one Gauss-Newton refinement (BENCH_GN), condensed-QP
+assembly and the fixed-barrier Newton-KKT fastMPC solve, DM modal
+correction -- batched over Monte-Carlo scenarios.
 
 Baseline: the reference's implied real-time budget of 200 Hz (5 ms per
 control step, README.md:36; BASELINE.md) -> vs_baseline = solves_per_s/200.
 
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"}.
-Env knobs: BENCH_RES (512), BENCH_BATCH (32), BENCH_STEPS (20),
-BENCH_SOLVER (fastmpc), BENCH_REPEATS (3), BENCH_DFT_DTYPE
+Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"}; a second
+JSON line on stderr carries the device, build/compile times and Strehl.
+Exits with an error unless JAX's backend is a GPU: a CPU timing is never
+reported under this metric.
+Env knobs: BENCH_RES (128), BENCH_BATCH (4096), BENCH_STEPS (25),
+BENCH_SOLVER (fastmpc), BENCH_REPEATS (3), BENCH_GN (0), BENCH_DFT_DTYPE
 (float32 | bfloat16 measurement matmuls).
 """
 
@@ -23,27 +27,24 @@ import time
 import jax
 import jax.numpy as jnp
 
-try:  # persistent compile cache smooths remote-compile latency across runs
-    jax.config.update("jax_compilation_cache_dir", "/tmp/mpcsao_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:
-    pass
-
 
 def main():
+    if jax.default_backend() != "gpu":
+        sys.exit(f"bench.py measures the GPU; JAX backend is "
+                 f"{jax.default_backend()!r}")
+    from mpc_sensorlessao_tpu.utils import compile_cache
+    compile_cache.enable()
+
     res = int(os.environ.get("BENCH_RES", "128"))
-    # B=4096 measured best-value batch at R=128 (BENCH_MAX_r03.json:
-    # 585k solves/s; 8192 adds only +3.8% for 2x memory).  NOTE R=512
-    # rows must keep B<=256 -- B=512 hits a 16x memory cliff.
     batch = int(os.environ.get("BENCH_BATCH", "4096"))
     steps = int(os.environ.get("BENCH_STEPS", "25"))
     solver = os.environ.get("BENCH_SOLVER", "fastmpc")
     repeats = int(os.environ.get("BENCH_REPEATS", "3"))
     dft_dtype = os.environ.get("BENCH_DFT_DTYPE", "float32")
     # 0 = the reference's linear-LS estimator exactly (README.md:478);
-    # each extra iteration re-runs the fused PSF measure (the dominant
-    # stage) once more per step to widen the capture range -- a
-    # robustness extension the reference does not have.
+    # each extra iteration re-runs the PSF measure once more per step to
+    # widen the capture range -- a robustness extension the reference
+    # does not have.
     gn = int(os.environ.get("BENCH_GN", "0"))
 
     from mpc_sensorlessao_tpu.models import pipeline
@@ -100,7 +101,9 @@ def main():
         "steps": steps,
         "solver": solver,
         "gauss_newton_iters": gn,
-        "device": str(jax.devices()[0]),
+        "device": {"platform": jax.devices()[0].platform,
+                   "kind": jax.devices()[0].device_kind,
+                   "count": len(jax.devices())},
         # exact OTF-volume Strehl (imager.m:115) is the headline metric;
         # the Marechal approximation is kept for comparison
         "mean_strehl": float(jnp.mean(out.strehl_exact[:, steps // 2:])),

@@ -38,11 +38,9 @@ except ImportError:  # source checkout without `pip install -e .`
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
 
-try:
-    jax.config.update("jax_compilation_cache_dir", "/tmp/mpcsao_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:
-    pass
+from mpc_sensorlessao_tpu.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
 if os.environ.get("CVM_CPU"):
     jax.config.update("jax_platforms", "cpu")
 
@@ -57,7 +55,7 @@ def _marechal(rms):
 
 def main():
     res = int(sys.argv[1]) if len(sys.argv) > 1 else 128
-    out_path = sys.argv[2] if len(sys.argv) > 2 else "CLASSICAL_r02.json"
+    out_path = sys.argv[2] if len(sys.argv) > 2 else "CLASSICAL.json"
     d_grid = [float(d) for d in os.environ.get("CVM_DR0", "5,10").split(",")]
     n_steps = int(os.environ.get("CVM_STEPS", "500"))
 

@@ -42,11 +42,9 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import jax  # noqa: E402
 
-try:
-    jax.config.update("jax_compilation_cache_dir", "/tmp/mpcsao_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:
-    pass
+from mpc_sensorlessao_tpu.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
 if os.environ.get("EFB_CPU"):
     jax.config.update("jax_platforms", "cpu")
 
@@ -228,7 +226,7 @@ def loop_marginal(res, batches, steps=STEPS, repeats=REPEATS,
 
 
 def main():
-    out_path = sys.argv[1] if len(sys.argv) > 1 else "EDGEFLOW_r05.json"
+    out_path = sys.argv[1] if len(sys.argv) > 1 else "EDGEFLOW.json"
     res = int(os.environ.get("EFB_RES", "128"))
     batch = int(os.environ.get("EFB_BATCH", "64"))
     smoke = bool(os.environ.get("EFB_CPU"))
@@ -276,8 +274,8 @@ def main():
         model, state0, key, done=report["advance_breakdown"],
         save=_save)
 
-    # bf16-stored conditioning operators (same MXU inputs as default
-    # precision; half the HBM traffic of the draw stage)
+    # bf16-stored conditioning operators (half the device-memory traffic
+    # of the draw stage)
     model_bf = jax.device_put(dataclasses.replace(
         model, A=model.A.astype(jnp.bfloat16),
         Bc=model.Bc.astype(jnp.bfloat16)))

@@ -1,6 +1,6 @@
 """Per-step cost of the conditional-Gaussian frozen flow on chip.
 
-The periodic sampled flow (ops/phase_screens.py) is the TPU fast path;
+The periodic sampled flow (ops/phase_screens.py) is the fast path;
 the conditional-Gaussian border extension (ops/edge_flow.py) is the
 reference-parity stochastic flow (telescopeAbstract.m:823-901).  This
 measures both inside the full closed-loop scan so the number is the
@@ -23,11 +23,9 @@ try:
 except ImportError:  # source checkout without `pip install -e .`
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
-try:
-    jax.config.update("jax_compilation_cache_dir", "/tmp/mpcsao_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:
-    pass
+from mpc_sensorlessao_tpu.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
 if os.environ.get("EFC_CPU"):
     jax.config.update("jax_platforms", "cpu")
 

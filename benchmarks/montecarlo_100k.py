@@ -43,11 +43,9 @@ except ImportError:  # source checkout without `pip install -e .`
 
 import jax  # noqa: E402
 
-try:
-    jax.config.update("jax_compilation_cache_dir", "/tmp/mpcsao_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:
-    pass
+from mpc_sensorlessao_tpu.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
 if os.environ.get("MC1_CPU"):
     jax.config.update("jax_platforms", "cpu")
 
@@ -61,7 +59,7 @@ from mpc_sensorlessao_tpu.utils.config import (                    # noqa
 
 def main():
     res = int(sys.argv[1]) if len(sys.argv) > 1 else 64
-    out_path = sys.argv[2] if len(sys.argv) > 2 else "MONTECARLO_r04.json"
+    out_path = sys.argv[2] if len(sys.argv) > 2 else "MONTECARLO.json"
     d_grid = [float(x) for x in
               os.environ.get("MC1_DR0", "5,10,15,20").split(",")]
     snr_grid = [float(x) for x in

@@ -27,11 +27,9 @@ try:
 except ImportError:  # source checkout without `pip install -e .`
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
-try:
-    jax.config.update("jax_compilation_cache_dir", "/tmp/mpcsao_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:
-    pass
+from mpc_sensorlessao_tpu.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
 if os.environ.get("MC_CPU"):
     jax.config.update("jax_platforms", "cpu")
 
@@ -42,7 +40,7 @@ from mpc_sensorlessao_tpu.utils.config import reference_config     # noqa
 
 def main():
     res = int(sys.argv[1]) if len(sys.argv) > 1 else 128
-    out_path = sys.argv[2] if len(sys.argv) > 2 else "MONTECARLO_r02.json"
+    out_path = sys.argv[2] if len(sys.argv) > 2 else "MONTECARLO.json"
     d_grid = [float(x) for x in
               os.environ.get("MC_DR0", "5,10,15,20").split(",")]
     snr_grid = [float(x) for x in

@@ -2,8 +2,8 @@
 
 SURVEY.md section 5.8 requires the scenario-sharded path to work across
 processes (hosts), with statistics reduced by collectives riding the
-inter-process fabric (DCN on a real pod; Gloo over localhost here, since
-no multi-chip TPU hardware is available in this environment).  This
+inter-process fabric (Gloo over localhost here, on virtual CPU devices).
+This
 script launches N real `jax.distributed` processes, each owning
 `--devices-per-process` virtual CPU devices, builds the identical system
 in every process (deterministic from the config seed), assembles the
@@ -310,7 +310,7 @@ def main():
         worker(int(sys.argv[sys.argv.index("--process-id") + 1]))
     else:
         out = (sys.argv[1] if len(sys.argv) > 1 and
-               not sys.argv[1].startswith("-") else "MULTIPROC_r04.json")
+               not sys.argv[1].startswith("-") else "MULTIPROC.json")
         driver(out)
 
 

@@ -1,8 +1,8 @@
-"""Settle the strong-turbulence reference-row parity question (VERDICT r3 #3).
+"""Settle the strong-turbulence reference-row parity question.
 
-`RESULTS_r03.json` `reference_rows` collapse at D/r0 >= 10 (settled residual
-~7.5 rad >> 0.91 rad of turbulence: the loop INJECTS aberration) while the
-tuned rows hold Strehl >= 0.89.  Is that a bug in the JAX engine, or the
+The protocol sweep's (benchmarks/protocol_sweep.py) `reference_rows`
+collapse at D/r0 >= 10 (the settled residual far exceeds the turbulence:
+the loop INJECTS aberration) while the tuned rows hold lock.  Is that a bug in the JAX engine, or the
 physics of the reference's plain-LS estimator operated outside its linear
 capture range?  This script runs the *independent float64 NumPy oracle*
 (tests/oracle_numpy.py -- a deliberately naive re-transcription of the
@@ -48,7 +48,7 @@ from test_golden_trajectory import _oracle_params                    # noqa
 
 
 def main():
-    out_path = sys.argv[1] if len(sys.argv) > 1 else "ORACLE_REFROWS_r04.json"
+    out_path = sys.argv[1] if len(sys.argv) > 1 else "ORACLE_REFROWS.json"
     res = int(os.environ.get("ORACLE_RES", "512"))
     n_steps = int(os.environ.get("ORACLE_STEPS", "120"))
     n_train = int(os.environ.get("ORACLE_TRAIN", "1000"))

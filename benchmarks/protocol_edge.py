@@ -14,7 +14,7 @@ flow="conditional":
                   tensor by each mag_conv multiplier).
   periodic rows   the identical protocol on the periodic fast path,
                   re-run here for a controlled same-session quality
-                  delta (RESULTS_r04.json numbers are from another
+                  delta (other runs' numbers come from another
                   session / HEAD).
   tuned rows      per-D/r0 tuned builds (order 10, ridge VAR, MMSE,
                   warm start) on the conditional flow, single scenario
@@ -48,11 +48,9 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-try:
-    jax.config.update("jax_compilation_cache_dir", "/tmp/mpcsao_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:
-    pass
+from mpc_sensorlessao_tpu.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
 if os.environ.get("PE_CPU"):
     jax.config.update("jax_platforms", "cpu")
 
@@ -115,7 +113,7 @@ def _apply_sim_env(cfg, n_steps):
 
 def main():
     res = int(sys.argv[1]) if len(sys.argv) > 1 else 512
-    out_path = sys.argv[2] if len(sys.argv) > 2 else "RESULTS_EDGE_r05.json"
+    out_path = sys.argv[2] if len(sys.argv) > 2 else "RESULTS_EDGE.json"
     d_grid = [float(d) for d in
               os.environ.get("PE_DR0", "5,10,15,20").split(",")]
     tuned_grid = [float(d) for d in

@@ -18,7 +18,7 @@ Two row families per D/r0:
              (radial order 10, ridge VAR, MMSE estimator, calibration
              warm start -- see MPCConfig/EstimatorConfig docstrings).
 
-Writes a JSON artifact (default RESULTS_r02.json) with per-row settled
+Writes a JSON artifact (default RESULTS.json) with per-row settled
 Strehl (exact OTF-volume + Marechal), residual RMS, rejection, VAR
 validation RMSE/RRMSE, and wall-clock timings.
 
@@ -46,11 +46,9 @@ except ImportError:  # source checkout without `pip install -e .`
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
 
-try:  # persistent compile cache smooths remote-compile latency
-    jax.config.update("jax_compilation_cache_dir", "/tmp/mpcsao_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:
-    pass
+from mpc_sensorlessao_tpu.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
 if os.environ.get("PROTO_CPU"):
     jax.config.update("jax_platforms", "cpu")
 
@@ -103,7 +101,7 @@ def _var_validation(cfg, system):
 
 def main():
     res = int(sys.argv[1]) if len(sys.argv) > 1 else 512
-    out_path = sys.argv[2] if len(sys.argv) > 2 else "RESULTS_r02.json"
+    out_path = sys.argv[2] if len(sys.argv) > 2 else "RESULTS.json"
     d_grid = [float(d) for d in
               os.environ.get("PROTO_DR0", "5,10,15,20").split(",")]
 

@@ -1,10 +1,9 @@
 """Scenario-parallel scaling-efficiency report over a device mesh.
 
-BASELINE asks for solves/s efficiency at 1 chip / 1 host / N hosts; with a
-single real chip available this reports scaling over however many devices
-the runtime exposes (run with JAX_PLATFORMS=cpu
-XLA_FLAGS=--xla_force_host_platform_device_count=8 for the virtual mesh;
-on a pod slice it uses the real chips unchanged).
+BASELINE asks for solves/s efficiency at 1 chip / 1 host / N hosts; this
+reports scaling over however many devices the runtime exposes (run with
+JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 for
+the virtual mesh; on a 4-GPU host it uses the real cards unchanged).
 
 Usage: python benchmarks/scaling.py [scenarios_per_device] [steps] [out.json]
 """

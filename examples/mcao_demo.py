@@ -17,7 +17,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-# demos run on the host CPU backend (portable; benchmarks cover TPU)
+# demos run on the host CPU backend (portable; chip_smoke.py and the
+# benchmarks cover the GPU)
 jax.config.update("jax_platforms", "cpu")
 
 try:

@@ -15,7 +15,8 @@ import sys
 import numpy as np
 import jax
 
-# demos run on the host CPU backend (portable; benchmarks cover TPU)
+# demos run on the host CPU backend (portable; chip_smoke.py and the
+# benchmarks cover the GPU)
 jax.config.update("jax_platforms", "cpu")
 
 try:

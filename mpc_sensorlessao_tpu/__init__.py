@@ -1,15 +1,15 @@
-"""mpc_sensorlessao_tpu: TPU-native sensorless adaptive-optics MPC framework.
+"""mpc_sensorlessao_tpu: sensorless adaptive-optics MPC framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 jinsungkim96/MPC-SensorlessAO (MATLAB): multi-layer frozen-flow Von Karman
 turbulence, Zernike modal decomposition, VAR(1)/VAR(2) aberration
 prediction, phase-diversity PSF estimation, and a fixed-barrier
 infeasible-start Newton ("fastMPC") interior-point QP controller -- all
-batched over turbulence scenarios and sharded over TPU device meshes.
+batched over turbulence scenarios and sharded over device meshes.
 
 Layout:
   ops/       compute kernels: zernike, phase statistics, phase screens,
-             PSF formation, structured Newton-KKT solves, Pallas kernels
+             PSF formation (with a Pallas GPU kernel), structured Newton-KKT solves
   models/    domain models: VAR system ID, DM influence, estimator,
              MPC problem assembly, solver backends, closed-loop engine
   parallel/  device mesh + shard_map Monte-Carlo scaling

@@ -1,6 +1,6 @@
 """Closed-loop sensorless-AO MPC simulation engine.
 
-TPU-native re-design of the reference's 500-step control loop
+Re-design of the reference's 500-step control loop
 (reference: README.md:444-626).  Two key structural changes:
 
 * the reference replays a precomputed (512,512,2000) phase tensor
@@ -178,7 +178,7 @@ def simulate(
         # synthesized here, at its single point of use: under vmap the
         # (R, R) phase-map carry would be a per-scenario HBM round-trip
         # every scan iteration, while the einsum output fuses straight
-        # into the residual add (measured ~2 us/scenario at R=512).
+        # into the residual add.
         if edge_model is not None:
             eflow, raw = edge_flow_mod.advance(
                 edge_model, eflow, start_step + idx, turb_key)
@@ -189,7 +189,7 @@ def simulate(
         pt_unit = zernike.piston_removed_phase_masked(
             raw, models.mask, models.mask_npix)
         phase_turb = pt_unit * mag
-        phase_cor = jnp.einsum("k,kij->ij", ad_cor, models.state_stack)
+        phase_cor = estimator_model.mode_phase(ad_cor, models.state_stack)
         phase_res = phase_turb + phase_cor
 
         # -- estimator (README.md:457-480) --
@@ -236,7 +236,7 @@ def simulate(
                     + (1e-3 * jnp.sqrt(jnp.mean(models.est.b_s ** 2))) ** 2)
 
             def chi2(xc):
-                ph = jnp.einsum("k,kij->ij", xc, models.state_stack)
+                ph = estimator_model.mode_phase(xc, models.state_stack)
                 dy = y - estimator_model.measure(models.est, ph, None)
                 return jnp.mean(dy * dy) / sig2
 
@@ -331,8 +331,7 @@ def simulate(
             # with ct_k = mean_pupil(pt Z_k) (UNBATCHED: one stack pass
             # per step, amortized over the scenario batch), G/mbar the
             # precomputed mode moments -- O(nx^2) per scenario instead
-            # of a batched (B, R^2) reduction (~13% of the R=512 step,
-            # benchmarks/step_knockouts.py no_rms).
+            # of a batched (B, R^2) reduction.
             ct = jnp.einsum("kij,ij->k", models.state_stack,
                             pt_unit) / models.mask_npix
             var_res = ((mag * rms_pt) ** 2
@@ -349,12 +348,9 @@ def simulate(
         strehl_exact = (jnp.max(y_clean[w2:2 * w2])
                         / jnp.max(models.est.b_s[w2:2 * w2]))
 
-        # ONE packed row per step: emitting the 11 StepOutputs fields as
-        # separate scan outputs costs 11 per-iteration dynamic-update-
-        # slices of tiny awkwardly-tiled arrays -- measured 13 us/scenario
-        # at R=512 B=256 on v5e (half the whole step!) vs ~0 for a single
-        # packed (3 nu + nx + 7,) row; unpacked into StepOutputs after
-        # the scan (benchmarks/step_knockouts.py).
+        # ONE packed row per step instead of 11 separate scan outputs
+        # (11 per-iteration dynamic-update-slices of tiny arrays);
+        # unpacked into StepOutputs after the scan.
         out = jnp.concatenate([
             u, u - u1, volts, x0,
             jnp.stack([jnp.linalg.norm(x0),
@@ -364,25 +360,29 @@ def simulate(
         ])
         return (u, u1, u2, x0, x_pre, ad_cor_new, eflow), out
 
-    if init_u is not None:
-        # acquisition warm start (MPCConfig.warm_start): pre-load the DM
-        # with the calibration-handover command so step 0 sees only the
-        # prediction error
-        u_init = init_u.astype(jnp.float32)
-        ad_init = models.influence @ u_init
-    else:
-        u_init = jnp.zeros((nu_dim,), dtype=jnp.float32)
-        ad_init = jnp.zeros((nx,), dtype=jnp.float32)
-    init = (
-        u_init,
-        jnp.zeros((nu_dim,), dtype=jnp.float32),
-        jnp.zeros((nu_dim,), dtype=jnp.float32),
-        jnp.zeros((nx,), dtype=jnp.float32),
-        jnp.zeros((nx,), dtype=jnp.float32),
-        ad_init,
-        edge_state,
-    )
-    _, packed = jax.lax.scan(step, init, jnp.arange(n_steps))
+    # Precision policy (EstimatorConfig): every product of the loop runs
+    # at full float32; only products that state their own precision (the
+    # measure's first DFT stage, the turbulence border draws) differ.
+    with jax.default_matmul_precision("highest"):
+        if init_u is not None:
+            # acquisition warm start (MPCConfig.warm_start): pre-load the
+            # DM with the calibration-handover command so step 0 sees
+            # only the prediction error
+            u_init = init_u.astype(jnp.float32)
+            ad_init = models.influence @ u_init
+        else:
+            u_init = jnp.zeros((nu_dim,), dtype=jnp.float32)
+            ad_init = jnp.zeros((nx,), dtype=jnp.float32)
+        init = (
+            u_init,
+            jnp.zeros((nu_dim,), dtype=jnp.float32),
+            jnp.zeros((nu_dim,), dtype=jnp.float32),
+            jnp.zeros((nx,), dtype=jnp.float32),
+            jnp.zeros((nx,), dtype=jnp.float32),
+            ad_init,
+            edge_state,
+        )
+        _, packed = jax.lax.scan(step, init, jnp.arange(n_steps))
     # unpack the (n_steps, 3 nu + nx + 7) telemetry rows (see step())
     cols = [nu_dim, nu_dim, nu_dim, nx]
     ofs = [0]
@@ -421,7 +421,8 @@ def turbulence_rollout(
         msk = mask.astype(raw.dtype)
         mean = jnp.sum(raw * msk) / mask_npix
         ph = (raw - mean) * msk * mag
-        return fit_full @ ph.reshape(-1)
+        return jnp.matmul(fit_full, ph.reshape(-1),
+                          precision=jax.lax.Precision.HIGHEST)
 
     # steps are independent open-loop replays: chunk-vectorized map
     return jax.lax.map(one, jnp.arange(n_steps), batch_size=32)

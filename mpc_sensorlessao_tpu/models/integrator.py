@@ -1,6 +1,6 @@
 """Classical AO control: TSVD calibration vault + delayed leaky integrator.
 
-TPU-native equivalent of the reference's bundled-but-unused OOMAO control
+Equivalent of the reference's bundled-but-unused OOMAO control
 stack (SURVEY.md 2d): `calibrationVault.m` (199 LoC) and `controller.m`
 (367 LoC).  The sensorless pipeline never instantiates them (the paper's
 controller is the MPC), but they define the classical baseline every AO
@@ -23,7 +23,7 @@ Reference semantics replicated:
   record slopes (models/wfs.interaction_matrix is the batched-matmul
   version of that loop).
 
-TPU-first design: the whole closed loop is ONE `lax.scan` whose body is
+Design: the whole closed loop is ONE `lax.scan` whose body is
 two matmuls (sense: slopes = S*phi_res; control: c += gain*M*s) --
 no per-step dispatch, batched over scenarios with `vmap`, and the delay
 line is a static-shape ring buffer carried through the scan.

@@ -8,7 +8,7 @@ heights whose photon fluxes follow the Na density profile weighted by
 extent from the launch-aperture geometry (laserGuideStar.m:36-53).
 The cone-effect footprint projection for finite-height sources already
 lives in ops/relay.py; this module adds the photometric and spot-shape
-pieces, TPU-first:
+pieces, redesigned for batched execution:
 
 * slab flux weights  w_k = rho_k / h_k^2 / sum(rho/h^2)
   (laserGuideStar.m:59-63);
@@ -21,7 +21,7 @@ pieces, TPU-first:
 * elongated spot formation: each subaperture's diffraction spot
   (wfs.spot_frames) is convolved with its own elongation kernel --
   built as ONE (n_subap, kw, kw) stack and applied as a single batched
-  `lax.conv_general_dilated` with feature groups (MXU-friendly, no
+  `lax.conv_general_dilated` with feature groups (one batched op, no
   per-subap Python loop).
 """
 
@@ -140,7 +140,7 @@ def elongate_spots(spots: jnp.ndarray, kernels: jnp.ndarray) -> jnp.ndarray:
 
     spots: (n_sub, w, w); kernels: (n_sub, kw, kw).  ONE grouped
     convolution (feature_group_count = n_sub): every subaperture is a
-    channel with its private filter -- no Python loop, MXU/VPU batched.
+    channel with its private filter -- no Python loop, batched.
     """
     n_sub, w, _ = spots.shape
     kw = kernels.shape[-1]

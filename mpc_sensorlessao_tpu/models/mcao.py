@@ -1,6 +1,6 @@
 """Modal multi-conjugate AO (MCAO): multi-DM tomographic fitting.
 
-TPU-native equivalent of the reference's bundled `modalMCAO.m` (127 LoC
+Equivalent of the reference's bundled `modalMCAO.m` (127 LoC
 demo pipeline: footprint projection -> data covariance -> data/target
 covariance -> command matrix -> analytic variances) together with
 `zernSmallFootprintExpansion.m` (51 LoC) / `zernike.m
@@ -21,7 +21,7 @@ directions, is minimized:
 with P_k the stacked footprint projections of every DM's meta-pupil
 Zernike basis onto the direction-k pupil footprint.
 
-TPU-first re-design decisions:
+Re-design decisions:
 
 * The reference computes each projection entry with an adaptive 2-D
   quadrature per mode pair (`quad2d` over `integrand`,

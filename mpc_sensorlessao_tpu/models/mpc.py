@@ -18,10 +18,11 @@ from __future__ import annotations
 
 from functools import partial
 
-import flax.struct as struct
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from ..utils import struct
 
 
 @struct.dataclass

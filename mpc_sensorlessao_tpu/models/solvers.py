@@ -2,7 +2,7 @@
 
 The reference offers four interchangeable solvers: CVX (README.md:506-520),
 fmincon (README.md:522-534), a closed-form pseudo-inverse (README.md:417)
-and fastMPC (Fast_MPC/).  This module provides their TPU-native equivalents
+and fastMPC (Fast_MPC/).  This module provides their batched JAX equivalents
 on a single batched API:
 
 * ``closed_form``      -- U = closed_form_matrix @ r (one matmul);

@@ -16,9 +16,10 @@ from __future__ import annotations
 from functools import partial
 from typing import Tuple
 
-import flax.struct as struct
 import jax
 import jax.numpy as jnp
+
+from ..utils import struct
 
 
 @struct.dataclass

@@ -1,16 +1,16 @@
 """Shack-Hartmann wavefront sensing + slope-based reconstructors.
 
-TPU-native equivalent of the reference's bundled-but-unused OOMAO sensing
+Equivalent of the reference's bundled-but-unused OOMAO sensing
 stack (SURVEY.md 2d): `shackHartmann.m` (1457 LoC), `lensletArray.m`,
 and the slope reconstructors `linearMMSE.m` / `slopesLinearMMSE.m`.
 The sensorless pipeline never instantiates them (the paper's estimator is
 phase diversity), but they define the optional capability surface; here
-they are rebuilt TPU-first:
+they are rebuilt for batched execution:
 
 * geometric slopes are ONE precomputed matmul: a (2 n_valid, R^2)
   operator averaging the phase x/y finite differences over each valid
   subaperture (the OOMAO "geometric" mode, shackHartmann.m `slopes`
-  semantics) -- batched over scenarios on the MXU;
+  semantics) -- batched over scenarios as matmuls;
 * diffractive spots use the same partial-DFT-as-matmul trick as the
   estimator (ops/dft.py): per-subaperture tiles -> centered partial DFT
   -> intensity -> centroid, batched over (subaps x scenarios), no FFT

@@ -3,10 +3,10 @@
 The fastMPC dual Schur complement S = C Phi^-1 C' is stage-block-banded:
 bandwidth = VAR order (ops/newton_kkt.py).  The reference factorizes it
 densely (inf_newton_solver.m:24-31) -- O(T^3 n^3) and strictly
-sequential.  For long horizons the right TPU shape is block cyclic
+sequential.  For long horizons the right parallel shape is block cyclic
 reduction (the parallel-in-time Riccati family, cf. PAPERS.md): each
 level eliminates the odd-indexed block rows with *batched* n x n
-matmuls/factorizations (MXU-friendly, vmappable over scenarios), halving
+matmuls/factorizations (vmappable over scenarios), halving
 the system; log2(T) levels of O(T n^3) total work and O(log T)
 sequential depth, vs the dense factorization's O(T) depth and O(T^3 n^3)
 work.

@@ -1,6 +1,6 @@
 """Conditional-Gaussian frozen-flow screen evolution (reference parity).
 
-TPU-native equivalent of the reference's stochastic screen-extension
+Equivalent of the reference's stochastic screen-extension
 frozen flow (reference: telescopeAbstract.m:823-901 `init`,
 telescopeAbstract.m:288-372 `update`):
 
@@ -17,7 +17,7 @@ telescopeAbstract.m:288-372 `update`):
   telescopeAbstract.m:333-372), and the sub-pixel remainder by ONE
   output-side bilinear interpolation that is never written back.
 
-TPU-first differences from the reference (documented deviations):
+Differences from the reference (documented deviations):
 * the stored screen lives on the integer-pixel lattice; the fractional
   offset is applied only when *sampling* the pupil phase.  The reference
   instead writes the interpolated map back into the layer state
@@ -41,11 +41,11 @@ from __future__ import annotations
 
 import math
 
-import flax.struct as struct
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..utils import struct
 from ..utils.config import AtmosphereConfig, TelescopeConfig
 from . import phase_screens, phase_stats
 
@@ -73,23 +73,16 @@ class EdgeFlowModel:
     step_px: tuple = struct.field(pytree_node=False)
     nsub: tuple = struct.field(pytree_node=False)
     size: int = struct.field(pytree_node=False)
-    # whole-pixel shift selection strategy (measured per size,
-    # EDGEFLOW_r05/EDGEFLOW512_r05): "switch" executes only the taken
-    # branch (wins at R<=128); "where" materializes the 4 candidates and
-    # selects (TPU conditionals carry fixed overhead that dominates at
-    # R=512, where the slices are cheap streaming copies)
+    # whole-pixel shift selection strategy: "switch" executes only the
+    # taken branch; "where" materializes the 4 candidates and selects
     shift_select: str = struct.field(pytree_node=False, default="switch")
     # advance() implementation: "vectorized" (batched layer draws/
-    # embeds AND stacked-frame shift selection -- 3.2x faster than
-    # per_layer at R=128), "per_layer" (the r4 structure; at R=512
-    # slicing the stacked layer frames relayouts poorly, making it 2x
-    # faster than vectorized there), or "hybrid" (batched draws +
-    # per-layer concat frames and shift selection: the draws/embed
-    # stage measured 0.92 ms of per_layer's 3.5 ms at R=512 --
-    # EDGEFLOW512_r05 -- so keeping the batched draw while slicing
-    # unstacked 2D frames takes the best half of each).  Distinct PRNG
-    # streams (per-step vs per-layer key folds), all exact draws of
-    # the same conditional-Gaussian process.
+    # embeds AND stacked-frame shift selection), "per_layer" (one layer
+    # at a time), or "hybrid" (batched draws + per-layer concat frames
+    # and shift selection).  Distinct PRNG streams (per-step vs
+    # per-layer key folds), all exact draws of the same
+    # conditional-Gaussian process.  build() picks by grid size; the
+    # GPU timings of both sides are printed by chip_smoke.py.
     impl: str = struct.field(pytree_node=False, default="vectorized")
 
     @property
@@ -97,7 +90,8 @@ class EdgeFlowModel:
         return self.A.shape[0]
 
 
-class EdgeFlowState(struct.PyTreeNode):
+@struct.dataclass
+class EdgeFlowState:
     """Scan carry: integer-lattice screens per layer."""
 
     phases: jnp.ndarray   # (L, n, n)
@@ -161,11 +155,9 @@ def build(seed, atm: AtmosphereConfig, tel: TelescopeConfig,
 
     ``op_dtype`` stores ONLY the conditioning operators A/Bc in a
     narrower dtype (state screens stay ``dtype``).  The R=512 border
-    draws are HBM-bound streaming ~400 MB of operators per step
-    (EDGEFLOW512_r05 breakdown), and the MXU already truncates f32
-    matmul operands to bf16 at default precision -- bf16 STORAGE halves
-    the traffic while feeding the MXU (near-)identical values
-    (accumulation stays f32 via preferred_element_type).
+    draws stream the operators from device memory every sub-step; bf16
+    storage halves that traffic (accumulation stays f32 via
+    preferred_element_type).
     """
     n = tel.resolution
     pitch = tel.pixel_pitch
@@ -197,9 +189,8 @@ def build(seed, atm: AtmosphereConfig, tel: TelescopeConfig,
         step_px=tuple(steps),
         nsub=tuple(nsub),
         size=n,
-        # measured crossover (EDGEFLOW_r05 vs EDGEFLOW512_r05 breakdown
-        # rows): branch overhead wins below ~256 px, candidate
-        # materialization wins above
+        # size dispatch kept from an earlier platform's timings; its GPU
+        # timings on both sides are printed by chip_smoke.py
         shift_select="switch" if n <= 256 else "where",
         impl="vectorized" if n <= 256 else "per_layer",
     )
@@ -234,7 +225,9 @@ def _draw_border(model: EdgeFlowModel, layer: int, phase, key):
     """X = A Z + B eps (telescopeAbstract.m:898-901), one layer."""
     Z = phase.reshape(-1)[model.inner_idx]
     eps = jax.random.normal(key, (model.Bc.shape[-1],), dtype=phase.dtype)
-    return model.A[layer] @ Z + model.Bc[layer] @ eps
+    dp = jax.lax.Precision.DEFAULT      # as in _draw_borders_all
+    return (jnp.matmul(model.A[layer], Z, precision=dp)
+            + jnp.matmul(model.Bc[layer], eps, precision=dp))
 
 
 def _embed(model: EdgeFlowModel, phase, border):
@@ -250,16 +243,19 @@ def _draw_borders_all(model: EdgeFlowModel, phases, key):
 
     One (L, nZ) ring gather, two batched-over-layers matmuls, one
     (L, nX) threefry draw -- replaces 4L separate small ops (the r4
-    per-layer path spent most of its 255 us/step overhead on op count,
-    not arithmetic; benchmarks/edge_flow_breakdown.py)."""
+    per-layer path is dominated by op count, not arithmetic;
+    benchmarks/edge_flow_breakdown.py)."""
     L = phases.shape[0]
     od = model.A.dtype
     Z = phases.reshape(L, -1)[:, model.inner_idx].astype(od)   # (L, nZ)
     eps = jax.random.normal(key, (L, model.Bc.shape[-1]),
                             dtype=phases.dtype).astype(od)
-    return (jnp.einsum("lxz,lz->lx", model.A, Z,
+    # TF32 products: their ~1e-4 relative rounding is far inside the
+    # sampling noise of the draw itself
+    dp = jax.lax.Precision.DEFAULT
+    return (jnp.einsum("lxz,lz->lx", model.A, Z, precision=dp,
                        preferred_element_type=jnp.float32)
-            + jnp.einsum("lxy,ly->lx", model.Bc, eps,
+            + jnp.einsum("lxy,ly->lx", model.Bc, eps, precision=dp,
                          preferred_element_type=jnp.float32)
             ).astype(phases.dtype)                             # (L, nX)
 
@@ -279,10 +275,9 @@ def _border_segments(borders, n: int):
 def _embed_all(model: EdgeFlowModel, phases, borders):
     """(L, n+2, n+2) frames: interior = phases, ring = borders.
 
-    Assembled with two concatenates instead of pad + flat ring scatter:
-    the 516-index scatter was the single hottest op of the r4 advance
-    (~63 us of the 315 us R=128 step, EDGEFLOW_r05 breakdown row
-    draws_embed); concat lowers to plain contiguous copies."""
+    Assembled with two concatenates instead of pad + flat ring scatter
+    (the ring scatter of `_embed`); concat lowers to plain contiguous
+    copies."""
     L, n = phases.shape[0], phases.shape[1]
     top, bottom, left, right = _border_segments(borders, n)
     body = jnp.concatenate(
@@ -431,10 +426,7 @@ def _select_shift(frame, phase, n, do_y, do_x, sgn_y, sgn_x, strategy):
 def advance_hybrid(model: EdgeFlowModel, state: EdgeFlowState, idx, key):
     """Batched border draws + per-layer frame/shift handling.
 
-    The EDGEFLOW512_r05 breakdown shows the R=512 per_layer advance
-    (3.5 ms/step) spends only ~0.9 ms of it on the batched
-    draws+embed equivalent; the rest is per-layer matvec draws and
-    stacked-frame slicing.  This path keeps the (L, nX) batched draw
+    This path keeps the (L, nX) batched draw
     (one einsum streaming the operators once) and assembles/slices
     UNSTACKED (n+2, n+2) frames per layer, where `_shift_exact` is a
     plain contiguous 2D slice.  Same per-step PRNG stream as the
@@ -532,6 +524,7 @@ def rollout(model: EdgeFlowModel, state: EdgeFlowState, key,
         msk = mask.astype(raw.dtype)
         mean = jnp.sum(raw * msk) / mask_npix
         ph = (raw - mean) * msk * mag
-        return st, fit_full @ ph.reshape(-1)
+        return st, jnp.matmul(fit_full, ph.reshape(-1),
+                              precision=jax.lax.Precision.HIGHEST)
 
     return jax.lax.scan(step, state, jnp.arange(n_steps))

@@ -1,6 +1,6 @@
 """Batched fixed-barrier infeasible-start Newton KKT solves ("fastMPC").
 
-TPU-first re-design of the reference solver stack
+Re-design of the reference solver stack
 (reference: Fast_MPC/VAR_2/{inf_newton_solver.m, inf_newton_KKT_H.m,
 fast_mpc_objective.m, fast_mpc_eq_const.m, fast_mpc_ineq_const.m,
 fast_mpc_init.m, backtracking_inf_newton.m}).  Same mathematics --
@@ -19,7 +19,7 @@ but a completely different computational shape:
   blocks, bandwidth = VAR order) and factorized once per iteration;
 * state is kept as (T, m) control / (T, n) state arrays, so every operation
   is a batched matmul and the whole solver `vmap`s over thousands of
-  scenarios into MXU-shaped einsums;
+  scenarios into batched einsums;
 * the backtracking line search (backtracking_inf_newton.m:3-9, whose loop
   guard never decrements -- a latent infinite loop) becomes a fixed bank of
   candidate step sizes evaluated in parallel, with explicit slack-positivity
@@ -48,7 +48,7 @@ from . import block_tridiag
 # Horizon at which the Schur solve switches from one dense Cholesky to
 # block cyclic reduction (O(log T) depth, O(T n^3) work -- see
 # ops/block_tridiag.py).  Dense wins for short horizons (fewer, larger
-# MXU calls); CR wins asymptotically (the dense factorization is
+# matmul calls); CR wins asymptotically (the dense factorization is
 # O(T^3 n^3)).
 CR_MIN_HORIZON = 16
 

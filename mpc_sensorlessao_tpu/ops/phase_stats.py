@@ -1,6 +1,6 @@
 """Von Karman phase statistics.
 
-TPU-native equivalent of the reference's `phaseStats` static class
+Equivalent of the reference's `phaseStats` static class
 (reference: OOMAO-master/phaseStats.m:6-39,194-209).  The PSD is
 jnp-friendly (used inside jitted screen synthesis); covariance/variance use
 the from-scratch K_{5/6} in utils.special and run either on host (numpy,

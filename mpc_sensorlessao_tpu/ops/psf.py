@@ -1,11 +1,20 @@
 """Phase-diversity PSF formation.
 
-TPU-native equivalent of the reference's estimator measurement path
+Equivalent of the reference's estimator measurement path
 (reference: README.md:366-397,457-475): for each defocus diversity zd in
 {-zd, 0, +zd} form  P = pupil .* exp(1i (phi_res + zd Z_defocus)),
 I = |fftshift(fft2(fftshift(P))) dx^2|^2, crop the central (2c+1)^2 window,
-scale by AU and stack -- here as one batched FFT over
-(... , diversity, R, R) so thousands of scenarios ride a single XLA FFT.
+scale by AU and stack.
+
+Two forms of the same map:
+
+* ``diversity_measurements`` -- any diversity stack, by full FFT2 + crop
+  (the reference's own recipe) or by the partial centered DFT;
+* ``sym3_measurements`` -- the closed loop's hot path for the symmetric
+  triple (-a, 0, +a) that the estimator always builds: cos/sin of the
+  residual phase once per pixel, the three fields as +/- combinations of
+  four products with the constant maps pupil cos(aZ) / pupil sin(aZ),
+  and only the (2c+1)^2 window computed, by partial-DFT matmuls.
 
 Measurement vectors use MATLAB column-major flattening of each crop
 (reference: README.md:471 `reshape(v_im, diff^2, 1)`) so that regenerated
@@ -16,10 +25,16 @@ from __future__ import annotations
 
 from functools import lru_cache
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
-from . import dft
+from . import dft, psf_kernel
+
+# Matmul precision of the measure's DFT stages.  TF32 tensor-core passes
+# keep ~1e-4 of max|b_s|, three orders below the SNR-10 dB noise floor
+# (~0.3 mean|b_s|); see EstimatorConfig for the whole precision policy.
+MEASURE_PRECISION = jax.lax.Precision.DEFAULT
 
 
 @lru_cache(maxsize=8)
@@ -79,27 +94,13 @@ def cropped_psf_intensity_dft(
     pupil: jnp.ndarray,
     dft_op: jnp.ndarray,
     scale: float,
-    compute_dtype=None,
 ) -> jnp.ndarray:
-    """PSF crop via partial centered DFT matmuls (ops.dft) -- the
-    TPU-native hot path: only the (2c+1)^2 window the estimator consumes
-    is ever computed (vs the reference's full 512^2 FFT, README.md:468).
-
-    ``compute_dtype`` selects reduced-precision matmul operands
-    (dft.partial_centered_fft2_real); None = float32 complex path.
-    """
-    if compute_dtype is None:
-        field = pupil * jnp.exp(1j * phase.astype(jnp.float32))
-        spec = dft.partial_centered_fft2(field, dft_op)
-        return (spec.real ** 2 + spec.imag ** 2) * scale
-    ph = phase.astype(jnp.float32)
-    fr = pupil * jnp.cos(ph)
-    fi = pupil * jnp.sin(ph)
-    out_r, out_i = dft.partial_centered_fft2_real(
-        fr, fi, dft_op, compute_dtype=compute_dtype)
-    out_r = out_r.astype(jnp.float32)
-    out_i = out_i.astype(jnp.float32)
-    return (out_r ** 2 + out_i ** 2) * scale
+    """PSF crop via partial centered DFT matmuls (ops.dft): only the
+    (2c+1)^2 window the estimator consumes is computed (vs the
+    reference's full 512^2 FFT, README.md:468)."""
+    field = pupil * jnp.exp(1j * phase.astype(jnp.float32))
+    spec = dft.partial_centered_fft2(field, dft_op)
+    return (spec.real ** 2 + spec.imag ** 2) * scale
 
 
 def diversity_measurements(
@@ -109,12 +110,6 @@ def diversity_measurements(
     scale: float,
     crop_half: int,
     dft_op: jnp.ndarray | None = None,
-    use_pallas: bool = False,
-    compute_dtype=None,
-    div_cos: jnp.ndarray | None = None,
-    div_sin: jnp.ndarray | None = None,
-    div_sym3: bool = False,
-    pallas_interpret: bool = False,
 ) -> jnp.ndarray:
     """Full measurement path: residual phase(s) -> stacked PSF vector(s).
 
@@ -122,51 +117,156 @@ def diversity_measurements(
     zd * Z_defocus maps (README.md:462-464).  Returns (..., p).
 
     With ``dft_op`` (from ops.dft.centered_partial_dft) the crop is
-    computed directly by partial-DFT matmuls (TPU path); otherwise via
-    full FFT2 + crop (CPU/reference-parity path).  Both are bit-equal up
-    to float roundoff (tested).
-
-    ``div_sym3=True`` asserts the diversity stack is the symmetric triple
-    (-a, 0, +a) (the reference's zd set, README.md:461) and dispatches the
-    even/odd-symmetry kernel (psf_crop_diversity_sym3: ~25% faster on v5e,
-    8.5 vs 11.3 us/scenario at R=512 measured inside scans).
+    computed directly by partial-DFT matmuls; otherwise via full FFT2 +
+    crop (the reference's recipe).  Both agree up to float roundoff
+    (tested).
     """
-    if dft_op is not None and use_pallas and div_cos is not None:
-        # fused kernel: diversity addition + cos/sin + DFT + crop all in
-        # VMEM (the (B, n_div, R, R) sum is never materialized)
-        from . import pallas_kernels
-        lead = phase_res.shape[:-2]
-        R = phase_res.shape[-1]
-        flat = phase_res.reshape((-1, R, R))
-        cdt = "bfloat16" if compute_dtype == jnp.bfloat16 else None
-        if div_sym3 and div_cos.shape[0] == 3:
-            crops = pallas_kernels.psf_crop_diversity_sym3(
-                flat, pupil, div_cos[2], div_sin[2], dft_op, scale,
-                compute_dtype=cdt, interpret=pallas_interpret)
-        else:
-            crops = pallas_kernels.psf_crop_diversity(
-                flat, pupil, div_cos, div_sin, dft_op, scale,
-                compute_dtype=cdt, interpret=pallas_interpret)
-        w = crops.shape[-1]
-        return measurement_vector(
-            crops.reshape(*lead, div_cos.shape[0], w, w))
     total = phase_res[..., None, :, :] + diversity_phases
     if dft_op is not None:
-        if use_pallas:
-            from . import pallas_kernels
-            lead = total.shape[:-2]
-            R = total.shape[-1]
-            flat = total.reshape((-1, R, R))
-            crops = pallas_kernels.psf_crop_intensity(
-                flat, pupil, dft_op, scale,
-                compute_dtype=("bfloat16" if compute_dtype == jnp.bfloat16
-                               else None))
-            w = crops.shape[-1]
-            crops = crops.reshape(*lead, w, w)
-        else:
-            crops = cropped_psf_intensity_dft(total, pupil, dft_op, scale,
-                                              compute_dtype=compute_dtype)
+        crops = cropped_psf_intensity_dft(total, pupil, dft_op, scale)
     else:
-        im = psf_intensity(total, pupil, scale)
-        crops = crop_center(im, crop_half)
+        crops = crop_center(psf_intensity(total, pupil, scale), crop_half)
     return measurement_vector(crops)
+
+
+def thin_rows_reference(phase, pupil, pcd, psd, a_packed,
+                        precision=MEASURE_PRECISION, compute_dtype=None):
+    """First DFT stage of the symmetric-triple measure in plain jnp.
+
+    phase: (B, R, R); pupil/pcd/psd: (R, R); a_packed: (2h, R) from
+    dft.packed_operator.  Returns G: (B, 3, R, 2h) with, per diversity
+    (-a, 0, +a), G[..., :h] = Re(field A^T) and G[..., h:] = Im(field A^T)
+    (the DFT applied along the columns; rows stay full length).
+
+    cos/sin are taken once per pixel.  By cos(-aZ) = cos(aZ) and
+    sin(-aZ) = -sin(aZ) the three fields are +/- combinations of
+    t1 = cos(phi) pcd, t2 = sin(phi) psd, t3 = sin(phi) pcd,
+    t4 = cos(phi) psd:  field(+-a) = (t1 -+ t2) + i (t3 +- t4).  Because
+    the DFT is linear, the +/- combination is applied after the matmul,
+    on thin (R, 2h) rows instead of (R, R) fields.
+    """
+    h = a_packed.shape[0] // 2
+    cp = jnp.cos(phase)
+    sp = jnp.sin(phase)
+    t = jnp.stack([cp * pcd, sp * psd, sp * pcd, cp * psd,
+                   cp * pupil, sp * pupil], axis=-3)          # (B, 6, R, R)
+    a = a_packed
+    if compute_dtype is not None:
+        t = t.astype(compute_dtype)
+        a = a.astype(compute_dtype)
+    P = jnp.einsum("bkxy,jy->bkxj", t, a, precision=precision,
+                   preferred_element_type=jnp.float32)       # (B, 6, R, 2h)
+    re, im = P[..., :h], P[..., h:]           # are.t_k and aim.t_k
+    # rr = are.fr - aim.fi,  ri = are.fi + aim.fr  per diversity
+    rr_m = re[:, 0] + re[:, 1] - im[:, 2] + im[:, 3]
+    ri_m = re[:, 2] - re[:, 3] + im[:, 0] + im[:, 1]
+    rr_0 = re[:, 4] - im[:, 5]
+    ri_0 = re[:, 5] + im[:, 4]
+    rr_p = re[:, 0] - re[:, 1] - im[:, 2] - im[:, 3]
+    ri_p = re[:, 2] + re[:, 3] + im[:, 0] - im[:, 1]
+    rr = jnp.stack([rr_m, rr_0, rr_p], axis=1)
+    ri = jnp.stack([ri_m, ri_0, ri_p], axis=1)
+    return jnp.concatenate([rr, ri], axis=-1)                 # (B, 3, R, 2h)
+
+
+def crops_from_rows(rows, a_packed, w, scale):
+    """Second DFT stage: (B, 3, R, 2h) rows -> (B, 3, w, w) intensities.
+
+    S = A2 @ G pairs every operator half with every row half:
+    out = (are + i aim)(rr + i ri) = (are rr - aim ri) + i (are ri + aim rr).
+    A (2h x R x 2h) product per diversity: small beside stage one, so it
+    runs at full float32.
+    """
+    h = a_packed.shape[0] // 2
+    S = jnp.einsum("jx,bdxk->bdjk", a_packed, rows,
+                   precision=jax.lax.Precision.HIGHEST)       # (B,3,2h,2h)
+    o_r = S[..., :h, :h] - S[..., h:, h:]
+    o_i = S[..., :h, h:] + S[..., h:, :h]
+    return ((o_r * o_r + o_i * o_i) * scale)[..., :w, :w]
+
+
+def sym3_measurements(phase_res, pupil, pcd, psd, dft_op, scale,
+                      compute_dtype=None, precision=MEASURE_PRECISION):
+    """Measurement vector(s) for the symmetric diversity triple (-a, 0, +a).
+
+    phase_res: (..., R, R); pcd = pupil cos(aZ), psd = pupil sin(aZ) for
+    the positive diversity map aZ; dft_op: (2, w, R).  Returns
+    (..., 3 w^2), equal to diversity_measurements on the stack
+    (-aZ, 0, +aZ) up to float roundoff.  ``compute_dtype`` (e.g.
+    jnp.bfloat16) casts the first-stage matmul operands, accumulating in
+    float32.
+
+    The first stage is chosen by ``thin_rows``: the fused GPU kernel
+    (ops.psf_kernel) for batches large enough to fill the card, plain
+    jnp otherwise.
+    """
+    lead = phase_res.shape[:-2]
+    R = phase_res.shape[-1]
+    w = dft_op.shape[1]
+    a_packed = dft.packed_operator(dft_op)
+    rows = thin_rows(phase_res.reshape((-1, R, R)).astype(jnp.float32),
+                     pupil.astype(jnp.float32), pcd.astype(jnp.float32),
+                     psd.astype(jnp.float32), a_packed,
+                     precision=precision, compute_dtype=compute_dtype)
+    crops = crops_from_rows(rows, a_packed, w, scale)
+    return measurement_vector(crops.reshape(*lead, 3, w, w))
+
+
+# Streaming multiprocessors of an H100: the smallest kernel grid that
+# gives each of them a program.
+KERNEL_MIN_PROGRAMS = 132
+
+
+def uses_kernel(batch: int, resolution: int) -> bool:
+    """Whether a (batch, R, R) first stage takes the GPU kernel.
+
+    The kernel runs one program per (phase, row tile) and needs at least
+    one program per SM (KERNEL_MIN_PROGRAMS) to fill the card.  Below
+    that XLA's plain path wins: on an H100 (700 W), inside the closed
+    loop at R=512, B=1 took 0.37 ms per step with the kernel and 0.23 ms
+    without; at B=256 2.78 ms against 4.62 ms.
+    """
+    if not psf_kernel.supports(resolution):
+        return False
+    rows_per_program = psf_kernel.tiles(resolution)[0]
+    return batch * (resolution // rows_per_program) >= KERNEL_MIN_PROGRAMS
+
+
+def thin_rows(phase, pupil, pcd, psd, a_packed,
+              precision=MEASURE_PRECISION, compute_dtype=None):
+    """First DFT stage, (B, R, R) -> (B, 3, R, 2h), by the kernel or by
+    thin_rows_reference as ``uses_kernel`` decides for the whole batch.
+
+    Under ``vmap`` (montecarlo.run_batch maps the loop over scenarios)
+    each scenario's call sees B=1; a custom batching rule folds the
+    mapped axis into B, so the choice and the kernel's grid see every
+    scenario at once.  The kernel runs only where the program is lowered
+    for CUDA.
+    """
+    def reference(*a):
+        return thin_rows_reference(*a, precision=precision,
+                                   compute_dtype=compute_dtype)
+
+    def kernel(*a):
+        return psf_kernel.thin_rows(*a, precision=precision,
+                                    compute_dtype=compute_dtype)
+
+    @jax.custom_batching.custom_vmap
+    def rows(phase, pupil, pcd, psd, a_packed):
+        args = (phase, pupil, pcd, psd, a_packed)
+        if uses_kernel(phase.shape[0], phase.shape[-1]):
+            return jax.lax.platform_dependent(*args, cuda=kernel,
+                                              default=reference)
+        return reference(*args)
+
+    @rows.def_vmap
+    def rows_vmap(axis_size, in_batched, phase, *maps):
+        if any(in_batched[1:]):
+            # per-scenario pupil or operator maps: no shared kernel
+            # operands, map the plain path
+            axes = [0 if b else None for b in in_batched]
+            return jax.vmap(reference, in_axes=axes)(phase, *maps), True
+        out = rows(phase.reshape((-1,) + phase.shape[2:]), *maps)
+        return out.reshape((axis_size, -1) + out.shape[1:]), True
+
+    return rows(phase, pupil, pcd, psd, a_packed)

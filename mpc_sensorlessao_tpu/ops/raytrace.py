@@ -5,7 +5,7 @@ abcd.m, freeSpace.m, thinLens.m, curvedMirror.m) -- 2x2 paraxial
 transfer matrices applied to (offset, angle) ray vectors, with element
 transverse offsets, stop vignetting, and z-propagation direction.
 
-TPU-first re-design: the reference mutates a ray vector through a chain
+Re-design: the reference mutates a ray vector through a chain
 of handle objects (abcd.m:46-53 `relay`); here elements are plain
 (matrix, offset, stop) records, a system is their list, and
 ``trace``/``trace_path`` are pure jittable functions over RAY BATCHES

@@ -1,6 +1,6 @@
 """Source geometry + multi-layer relay projection (NGS off-axis / LGS cone).
 
-TPU-native equivalent of the reference's general relay branch and the
+Equivalent of the reference's general relay branch and the
 LGS portions of `source.m` (SURVEY.md 2d "source.m LGS branches"):
 
 * source.m:412-417  -- directionVector = (tan(zenith) cos(azimuth),
@@ -19,7 +19,7 @@ LGS portions of `source.m` (SURVEY.md 2d "source.m LGS branches"):
 * telescopeAbstract.m:446-447 -- on-axis NGS fast path = plain layer
   sum (already in ops/phase_screens.phase_at).
 
-TPU-first: the projection is a gather-based bilinear interpolation with
+Design: the projection is a gather-based bilinear interpolation with
 coordinates computed in-program from static geometry -- jit/vmap
 friendly, no per-step host work; layers of different grid sizes are
 unrolled at trace time (layer count is tiny and static).

@@ -1,13 +1,13 @@
 """Zernike modal engine.
 
-TPU-first re-design of the reference's Zernike pipeline
+Re-design of the reference's Zernike pipeline
 (reference: zernfun.m:134-192, zernmodfit.m:195-214):
 
 * the mode table uses the reference's *modified* ordering -- per radial
   order n, azimuthal numbers m = (-n:2:-1) then fliplr(n:-2:0)
   (reference: zernmodfit.m:195-198), so mode 0 is piston and mode 4 is
   defocus (the diversity mode, MATLAB 1-based idx2=5, README.md:393);
-* basis evaluation is a single power-table matmul (MXU-friendly) instead of
+* basis evaluation is a single power-table matmul instead of
   the reference's per-mode scalar loops (zernfun.m:161-178);
 * decomposition ("zernmodfit") and synthesis are precomputed-operator
   matmuls so thousands of frames batch through `vmap`/`einsum`;

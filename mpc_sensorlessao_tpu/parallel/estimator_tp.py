@@ -6,13 +6,13 @@ for configurations where a single estimator evaluation outgrows one
 chip -- extreme-resolution pupils (R >= 2k) or wide-field mosaics where
 the stacked measurement p = n_div (2c+1)^2 and the linearized operators
 A_s/S get large.  (The reference has no parallelism at all,
-SURVEY.md 2/5.8; this axis exists only in the TPU-native design.)
+SURVEY.md 2/5.8; this axis exists only in this design.)
 
 Sharding layout (shard_map over a named "tp" axis):
 
 * estimate:  S (nx, p) is sharded along p (columns), y along its last
   dim; each device contracts its local slice and a single `psum` over
-  ICI reduces the (nx,) partials -- the classic contraction split.
+  a psum reduces the (nx,) partials -- the classic contraction split.
 * measure:   the partial-DFT rows S1 = A X A^T contract over the pupil
   dimension R; A (w, R) is sharded along R and X row-sharded, partial
   products psum-reduced.  Here we shard the cheaper estimate path and

@@ -12,7 +12,7 @@ SUB-STRUCTURING (the classic partitioned/Spike scheme):
    block-tridiagonal solve (ops.block_tridiag.cr_solve, multi-RHS);
 2. the condensed system -- 2 blocks per device, still block-tridiagonal,
    size 2 P n instead of T n -- is `all_gather`ed (the ONLY collective:
-   2P n^2 + 2P n floats over ICI) and solved redundantly on every
+   2P n^2 + 2P n floats between devices) and solved redundantly on every
    device;
 3. each device back-substitutes its interior unknowns locally.
 
@@ -33,8 +33,7 @@ from ..ops import block_tridiag
 HZ_AXIS = "hz"
 
 # jitted solver cache: rebuilding the shard_map closure per call would
-# retrace/recompile every time (remote compiles are erratically slow --
-# CLAUDE.md); key on the static configuration
+# retrace/recompile every time; key on the static configuration
 _SOLVER_CACHE: dict = {}
 
 

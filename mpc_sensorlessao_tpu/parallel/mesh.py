@@ -1,12 +1,12 @@
 """Device-mesh construction for scenario-parallel Monte-Carlo scaling.
 
 The reference has no distributed backend at all (SURVEY.md section 2: no
-MPI/NCCL/Gloo; two shared-memory parfor loops).  The TPU-native equivalent
-(SURVEY.md section 5.8) is a `jax.sharding.Mesh` over a pod slice with the
-Monte-Carlo scenario axis sharded across chips and statistics reduced over
-ICI collectives (`psum`).  Multi-host runs reuse the same code: under
-`jax.distributed`, `jax.devices()` spans all hosts and the mesh axis rides
-ICI within a slice / DCN across slices automatically.
+MPI/NCCL/Gloo; two shared-memory parfor loops).  Here (SURVEY.md section
+5.8) a 1-D `jax.sharding.Mesh` shards the Monte-Carlo scenario axis across
+devices and reduces statistics with collectives (`psum`, which XLA hands
+to NCCL on GPUs).  Every card of a host reaches every other at the same
+rate, so the mesh follows the algorithm alone.  Multi-host runs reuse the
+same code: under `jax.distributed`, `jax.devices()` spans all hosts.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 Implements BASELINE configs 4-5: thousands of parallel frozen-flow
 scenarios (varying turbulence window, D/r0, SNR, noise realization) with
 per-chip `vmap` batches, the scenario axis sharded over the device mesh via
-`shard_map`, and Strehl/RMS statistics reduced with `psum` over ICI.
+`shard_map`, and Strehl/RMS statistics reduced with `psum`.
 """
 
 from __future__ import annotations

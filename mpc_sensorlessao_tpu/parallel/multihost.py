@@ -1,14 +1,16 @@
-"""Multi-host pod-slice execution helpers.
+"""Multi-host execution helpers.
 
 BASELINE config 5: 100k+ scenario rollouts across hosts with statistics
 reduced via collectives.  The scenario-sharded `montecarlo.run_sharded`
 path is already multi-host-clean -- under `jax.distributed`,
-`jax.devices()` spans every host, the mesh covers the slice, psum rides
-ICI within a slice and DCN across slices, and each host feeds only its
-addressable shard.  This module adds the process bootstrap and
-global-array assembly glue.
+`jax.devices()` spans every host, the mesh covers all of them, and each
+process feeds only its addressable shard.  This module adds the process
+bootstrap and global-array assembly glue.
 
-Run on every host:
+Launch ONE process per host: it drives every card of its host (JAX's
+default for a process started without ``local_device_ids``), and
+`jax.distributed` joins the hosts.  Two processes on one host would each
+claim all of its cards.  Run on every host:
     python -m mpc_sensorlessao_tpu.parallel.multihost \
         --coordinator=HOST0:1234 --num-processes=N --process-id=i
 """

@@ -1,2 +1,3 @@
-from . import (checkpoint, config, gridtools, guards, hostcompute,
-               logbook, metrics, photometry, profiling, special, units)
+from . import (checkpoint, compile_cache, config, gridtools, guards,
+               hostcompute, logbook, metrics, photometry, profiling, special,
+               struct, units)

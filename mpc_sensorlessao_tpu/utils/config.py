@@ -1,4 +1,4 @@
-"""Configuration system for the TPU-native sensorless-AO MPC framework.
+"""Configuration system for the sensorless-AO MPC framework.
 
 The reference implementation hard-codes every scenario constant as MATLAB
 script variables (reference: README.md:36-49,337-362) and has no config
@@ -56,18 +56,16 @@ class AtmosphereConfig:
     oversample: int = 4                # FFT screen oversampling (atmosphere.m:447)
     subharmonic_levels: int = 3        # low-frequency compensation depth
     # Frozen-flow evolution scheme:
-    # "periodic":    sampled periodic oversampled screens (TPU fast path,
+    # "periodic":    sampled periodic oversampled screens (fast path,
     #                ops/phase_screens.py);
     # "conditional": conditional-Gaussian border extension, the
     #                reference-parity stochastic flow
     #                (telescopeAbstract.m:823-901; ops/edge_flow.py).
     flow: str = "periodic"
     # Storage dtype for the conditional-flow conditioning operators A/Bc
-    # (ops/edge_flow.py).  "bfloat16" halves the HBM traffic of the
-    # R=512 border draws; the MXU already truncates f32 matmul operands
-    # to bf16 at default precision, so the computed draws are
-    # (near-)identical (accumulation stays f32).  State screens are
-    # always float32.
+    # (ops/edge_flow.py).  "bfloat16" halves the device-memory traffic
+    # of the R=512 border draws (accumulation stays f32).  State screens
+    # are always float32.
     edge_op_dtype: str = "float32"
 
     @property
@@ -172,7 +170,31 @@ class DMConfig:
 
 @dataclass(frozen=True)
 class EstimatorConfig:
-    """Phase-diversity PSF estimator (reference: README.md:366-397,457-480)."""
+    """Phase-diversity PSF estimator (reference: README.md:366-397,457-480).
+
+    Matmul precision policy of the closed loop (one place for all of it;
+    GPUs may run float32 products in TF32, which keeps ~3 decimal
+    digits):
+
+    * every product of the control step runs at full float32
+      (Precision.HIGHEST): the estimator solve (solve_op, condition
+      ~1e4), the Zernike synthesis/projection, the VAR prediction and
+      the fastMPC Newton-KKT solve (closed_loop.simulate traces the step
+      under ``jax.default_matmul_precision("highest")``; estimator.py
+      states it at its own call sites);
+    * the measure's first DFT stage, the loop's one heavy product, runs
+      at ops.psf.MEASURE_PRECISION = TF32: its error against the float64
+      full-FFT crop is ~1e-5 of max|b_s| at the reference widths, ~1% of
+      the SNR-10 dB noise floor (chip_smoke.py phase 1 prints both);
+      its small second stage runs at full float32;
+    * the conditional flow's border draws run at TF32 (their rounding is
+      far inside the sampling noise of the draw itself);
+    * set-up (linearization, identification, operator precomputes) runs
+      on the host CPU at exact float32 / float64 (utils.hostcompute).
+
+    No option selects among these: the policy is checked on the card by
+    chip_smoke.py phase 2 (R=512 trajectory vs the float64 oracle).
+    """
 
     resolution: int = 128              # pupil/FFT grid (len; reference uses 512)
     diversity_mode: int = 4            # 0-based defocus index (MATLAB idx2=5)
@@ -191,10 +213,9 @@ class EstimatorConfig:
     #                 awgn-style; peak-dominated, ~15x stronger)
     snr_reference: str = "mean_abs"
     tikhonov: float = 0.0              # optional LS regularization
-    # DFT matmul operand precision for the measurement path: "float32"
-    # (default, bit-stable) or "bfloat16" (MXU-native mixed precision,
-    # ~2x matmul throughput; ~0.4% spectrum error, far below the 10 dB
-    # noise floor -- see dft.partial_centered_fft2_real).
+    # Operand dtype of the measure's first DFT stage: "float32"
+    # (default) or "bfloat16" (float32 accumulation; ~0.4% spectrum
+    # error, below the 10 dB noise floor -- ops.psf.sym3_measurements).
     dft_dtype: str = "float32"
     # Estimation method:
     # "ls":   plain normal-equation least squares (the reference,
@@ -250,7 +271,11 @@ class EstimatorConfig:
 
 @dataclass(frozen=True)
 class MPCConfig:
-    """MPC cost, constraints and solver (reference: README.md:337-356,536-556)."""
+    """MPC cost, constraints and solver (reference: README.md:337-356,536-556).
+
+    The VAR prediction and the Newton-KKT solve run at full float32
+    inside the loop (the precision policy is in EstimatorConfig).
+    """
 
     horizon: int = 2                   # N
     var_order: int = 2                 # VAR(p), p in {1, 2}

@@ -3,11 +3,12 @@
 The reference drives interactive MATLAB figures all over its display
 surface -- `telescopeAbstract.imagesc` (telescopeAbstract.m:496-560),
 `stochasticWave` displays, `utilities.polar3` (utilities.m:427-487), and
-the `realTimeDisplay` workstation class.  The TPU-native equivalent is
+the `realTimeDisplay` workstation class.  The equivalent here is
 headless-friendly: each helper builds a matplotlib figure (Agg-safe,
 lazily imported so the compute path never touches matplotlib), returns
 it, and optionally saves to a file -- the natural workflow on a remote
-TPU host where "display" means writing a PNG next to the run artifacts.
+accelerator host where "display" means writing a PNG next to the run
+artifacts.
 
 All helpers accept jax or numpy arrays (converted on entry; device
 arrays are fetched once).

@@ -167,7 +167,7 @@ def bilinear_interp_matrix(xi, yi, xo, yo, do: float) -> np.ndarray:
     (bilinearSplineInterpMat.m:83-131 `bilinearSplineInterp` /
     tools.bilinearSparseInterpolator), built dense: the lattices in this
     framework are small (hundreds of points) and the apply is a single
-    MXU matmul rather than a sparse gather.
+    dense matmul rather than a sparse gather.
 
     xi, yi: target point coordinates; xo, yo: source lattice point
     coordinates; do: source lattice pitch (same units).

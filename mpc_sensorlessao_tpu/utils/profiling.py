@@ -16,23 +16,30 @@ from dataclasses import dataclass
 
 import jax
 
-# Peak numbers for roofline normalization (per chip).
+# Published peaks per device, keyed by jax.devices()[0].device_kind.
+# NVIDIA H100 SXM data sheet (dense, no sparsity, at its 700 W limit):
+# 67 TFLOP/s float32 outside the tensor cores, 495 TFLOP/s TF32,
+# 989 TFLOP/s bf16, 3.35 TB/s HBM3.  A card set below 700 W cannot hold
+# these clocks; report its power limit beside any share of them.
 DEVICE_PEAKS = {
-    # (f32 FLOP/s, bf16 FLOP/s, HBM bytes/s)
-    "v5e": (98e12 / 2, 197e12, 819e9),
-    "v5p": (459e12 / 2, 459e12, 2765e9),
-    "cpu": (5e10, 5e10, 5e10),
+    "NVIDIA H100 80GB HBM3": {
+        "f32_flops": 67e12, "tf32_flops": 495e12, "bf16_flops": 989e12,
+        "hbm_bytes": 3.35e12, "source": "NVIDIA H100 SXM data sheet, 700 W",
+    },
 }
 
 
-def device_kind() -> str:
-    d = jax.devices()[0]
-    kind = getattr(d, "device_kind", "cpu").lower()
-    if "v5 lite" in kind or "v5e" in kind:
-        return "v5e"
-    if "v5p" in kind or "v5" in kind:
-        return "v5p"
-    return "cpu"
+def device_peaks(kind: str | None = None) -> dict:
+    """Peaks of ``kind`` (default: this process's first device).  A device
+    missing from DEVICE_PEAKS is an error, never a default."""
+    if kind is None:
+        kind = jax.devices()[0].device_kind
+    try:
+        return DEVICE_PEAKS[kind]
+    except KeyError:
+        raise KeyError(f"no published peaks for device kind {kind!r}; add "
+                       f"them to profiling.DEVICE_PEAKS with their "
+                       f"source") from None
 
 
 @dataclass
@@ -42,7 +49,7 @@ class RooflineReport:
     bytes_accessed: float
     achieved_flops_per_s: float
     achieved_bytes_per_s: float
-    flop_utilization: float       # vs f32 peak
+    flop_utilization: float       # vs the float32 (non-tensor-core) peak
     bandwidth_utilization: float
     bound: str                    # "compute" | "memory"
 
@@ -74,7 +81,8 @@ def roofline(fn, *args, repeats: int = 5) -> RooflineReport:
         jax.block_until_ready(out)
         best = min(best, time.perf_counter() - t0)
 
-    peak_f32, _, peak_bw = DEVICE_PEAKS[device_kind()]
+    peaks = device_peaks()
+    peak_f32, peak_bw = peaks["f32_flops"], peaks["hbm_bytes"]
     fps = flops / best
     bps = bytes_accessed / best
     fu = fps / peak_f32
@@ -88,7 +96,7 @@ def roofline(fn, *args, repeats: int = 5) -> RooflineReport:
 
 
 @contextmanager
-def trace(log_dir: str = "/tmp/mpcsao_trace"):
+def trace(log_dir: str):
     """jax.profiler trace context (view with TensorBoard / xprof)."""
     jax.profiler.start_trace(log_dir)
     try:

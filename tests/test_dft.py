@@ -68,16 +68,12 @@ def test_bf16_measurement_path_accuracy():
     assert np.linalg.norm(x16 - x32) < 0.1 * np.linalg.norm(x32)
 
 
-def test_real_form_dft_matches_complex():
-    from mpc_sensorlessao_tpu.ops import dft
-    rng = np.random.default_rng(1)
-    N, c = 32, 5
-    op = dft.centered_partial_dft(N, c)
-    fr = jnp.asarray(rng.normal(size=(3, N, N)), jnp.float32)
-    fi = jnp.asarray(rng.normal(size=(3, N, N)), jnp.float32)
-    ref = dft.partial_centered_fft2(jax.lax.complex(fr, fi), op)
-    out_r, out_i = dft.partial_centered_fft2_real(fr, fi, op)
-    np.testing.assert_allclose(np.asarray(out_r), np.asarray(ref.real),
-                               rtol=1e-5, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(out_i), np.asarray(ref.imag),
-                               rtol=1e-5, atol=1e-4)
+def test_packed_operator_layout():
+    """[real; 0; imag; 0] halves of a power-of-two height (>= 16)."""
+    op = dft.centered_partial_dft(32, 5)                 # w = 11
+    packed = np.asarray(dft.packed_operator(op))
+    h = dft.packed_half(11)
+    assert h == 16 and packed.shape == (32, 32)
+    np.testing.assert_array_equal(packed[:11], np.asarray(op[0]))
+    np.testing.assert_array_equal(packed[h:h + 11], np.asarray(op[1]))
+    assert not packed[11:h].any() and not packed[h + 11:].any()

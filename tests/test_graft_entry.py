@@ -1,9 +1,6 @@
-"""Driver entry-point smoke tests (bitrot guard for __graft_entry__).
-
-The driver compile-checks `entry()` single-chip and runs
-`dryrun_multichip(N)` on a virtual CPU mesh; exercise the latter here on
-the conftest 8-device mesh so interface drift fails in CI, not in the
-driver.
+"""Entry-point smoke tests (bitrot guard for __graft_entry__):
+`dryrun_multichip(N)` on the conftest 8-device virtual CPU mesh, and the
+device check that never turns an accelerator process into a CPU one.
 """
 
 import sys
@@ -15,3 +12,21 @@ def test_dryrun_multichip_8():
     import __graft_entry__ as graft
 
     graft.dryrun_multichip(8)
+
+
+def test_ensure_devices_refuses_to_switch_accelerator(monkeypatch):
+    """Too few GPU devices: an error, not a silent CPU re-platforming."""
+    import pytest
+    import jax
+
+    import __graft_entry__ as graft
+
+    class FakeGpu:
+        platform = "gpu"
+
+    updates = []
+    monkeypatch.setattr(jax, "devices", lambda *a: [FakeGpu()])
+    monkeypatch.setattr(jax.config, "update", lambda *a: updates.append(a))
+    with pytest.raises(RuntimeError, match="needs 4 gpu devices"):
+        graft._ensure_devices(4)
+    assert updates == []

@@ -6,9 +6,9 @@ never scales (Fast_MPC/VAR_2/Fast_MPC2.m:28-55, README.md:38); the
 framework must build and close the loop at radial order 14 (120 modes,
 119 non-piston states) and at horizons long enough to engage the
 O(log T) cyclic-reduction Newton-KKT path (ops/newton_kkt.py
-CR_MIN_HORIZON).  Chip-scale quality/throughput cells live in
-MODES_r04.json (benchmarks/modes_horizon.py); these tests pin the build
-and solve paths in the default suite.
+CR_MIN_HORIZON).  Chip-scale quality/throughput cells come from
+benchmarks/modes_horizon.py; these tests pin the build and solve paths
+in the default suite.
 """
 
 import dataclasses

@@ -1,4 +1,5 @@
-"""Aux subsystems: metrics, logbook, profiling, checkpoint."""
+"""Aux subsystems: metrics, logbook, profiling, compile cache, host
+set-up, checkpoint."""
 
 import dataclasses
 
@@ -39,13 +40,63 @@ def test_logbook_capture():
     assert tail[0][2] == "turb"
 
 
-def test_roofline_on_matmul():
-    a = jnp.ones((256, 256))
-    rep = profiling.roofline(lambda x: x @ x, a, repeats=2)
-    assert rep.wall_s > 0
-    assert rep.flops > 2 * 256**3 * 0.5
-    assert rep.bound in ("compute", "memory")
-    assert "TFLOP" in str(rep)
+def test_device_peaks_h100():
+    """The H100's published peaks, looked up by its device_kind string."""
+    p = profiling.device_peaks("NVIDIA H100 80GB HBM3")
+    assert p["f32_flops"] == 67e12 and p["tf32_flops"] == 495e12
+    assert p["bf16_flops"] == 989e12 and p["hbm_bytes"] == 3.35e12
+    assert "data sheet" in p["source"]
+
+
+def test_device_peaks_unknown_device_raises():
+    """No silent default: a device without published peaks is an error
+    (this CPU backend included)."""
+    import pytest
+    with pytest.raises(KeyError):
+        profiling.device_peaks("Unlisted Accelerator 9000")
+    with pytest.raises(KeyError):
+        profiling.roofline(lambda x: x @ x, jnp.ones((16, 16)), repeats=1)
+
+
+def test_compile_cache_follows_env(monkeypatch):
+    """JAX_COMPILATION_CACHE_DIR set: that directory, nothing set in
+    code."""
+    from mpc_sensorlessao_tpu.utils import compile_cache
+    calls = []
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/some/where")
+    monkeypatch.setattr(jax.config, "update",
+                        lambda *a: calls.append(a))
+    assert compile_cache.enable() == "/some/where"
+    assert calls == []
+
+
+def test_compile_cache_default_in_checkout(monkeypatch):
+    """Unset: a fixed, git-ignored directory inside the checkout."""
+    import os
+    from mpc_sensorlessao_tpu.utils import compile_cache
+    calls = []
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    monkeypatch.setattr(jax.config, "update",
+                        lambda *a: calls.append(a))
+    d = compile_cache.enable()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert d == os.path.join(repo, ".jax_cache")
+    assert calls == [("jax_compilation_cache_dir", d)]
+    with open(os.path.join(repo, ".gitignore")) as f:
+        assert ".jax_cache/" in f.read().split()
+
+
+def test_hostcompute_raises_without_cpu_backend(monkeypatch):
+    """Set-up never moves silently to an accelerator."""
+    import pytest
+    from mpc_sensorlessao_tpu.utils import hostcompute
+
+    def no_cpu(backend=None, **kw):
+        raise RuntimeError(f"Unknown backend {backend}")
+
+    monkeypatch.setattr(jax, "local_devices", no_cpu)
+    with pytest.raises(RuntimeError, match="host CPU backend"):
+        hostcompute.cpu_device()
 
 
 def test_checkpoint_round_trip(tmp_path):
